@@ -1,7 +1,17 @@
 """Versioned store-key schema: the single place the port mints key strings
-(mirrors ``repro/api/keys.py``; the serve plane of version 5).
+(mirrors ``repro/api/keys.py``: the train plane of version 1 and the serve
+plane of version 5).
 
-The serve plane lives in its own ``serve/`` namespace: the driver publishes
+Version 1, the lockstep training epoch:
+
+  activations/ep{E}/t{T}/tokens          pipeline-entry token batch
+  activations/ep{E}/t{T}/s{S}/m{U}       stage-S output uploaded by miner U
+  activations/ep{E}/t{T}/s{S}/m{U}/grad  gradient w.r.t. that output
+  weights/ep{E}/s{S}/m{U}                compressed weight upload (sharing)
+  weights/ep{E}/s{S}/merged              post-butterfly DiLoCo anchor
+  scores/ep{E}/v{V}/m{U}                 validator V's score for miner U
+
+Version 5: the serve plane lives in its own ``serve/`` namespace: the driver publishes
 the session plan once, then one lane plan per decode round; stages
 store-and-forward boundary codes per (round, lane); tokens append under
 their request:
@@ -14,9 +24,10 @@ their request:
   serve/req{R}/done                 completion marker (latency stats)
 
 Every string equals the reference's byte for byte, so digests, namespace
-byte accounting and GC prefixes match it.  The train-plane keys of
-versions 1-4 come with the training slice; minting a serve key from a
-schema below version 5 raises ``ValueError``, as in the reference.
+byte accounting and GC prefixes match it.  Minting a serve key from a
+schema below version 5 raises ``ValueError``, as in the reference.  The
+kinds versions 2-4 add (shard keys of the sharded sync, the actor runtime's
+control plane, plan revisions) come with later slices.
 """
 # this module is the one sanctioned minting site of the port's store keys
 # swarmlint: disable-file=key-literal
@@ -28,7 +39,27 @@ import re
 SCHEMA_VERSION = 1
 SUPPORTED_VERSIONS = (1, 2, 3, 4, 5)
 
+NS_ACTIVATIONS = "activations"
+NS_WEIGHTS = "weights"
+NS_SCORES = "scores"
 NS_SERVE = "serve"
+
+_V1_PATTERNS = (
+    ("tokens", re.compile(
+        r"^activations/ep(?P<epoch>\d+)/t(?P<tick>\d+)/tokens$")),
+    ("gradient", re.compile(
+        r"^activations/ep(?P<epoch>\d+)/t(?P<tick>\d+)/s(?P<stage>\d+)"
+        r"/m(?P<uid>\d+)/grad$")),
+    ("activation", re.compile(
+        r"^activations/ep(?P<epoch>\d+)/t(?P<tick>\d+)/s(?P<stage>\d+)"
+        r"/m(?P<uid>\d+)$")),
+    ("anchor", re.compile(
+        r"^weights/ep(?P<epoch>\d+)/s(?P<stage>\d+)/merged$")),
+    ("weights", re.compile(
+        r"^weights/ep(?P<epoch>\d+)/s(?P<stage>\d+)/m(?P<uid>\d+)$")),
+    ("score", re.compile(
+        r"^scores/ep(?P<epoch>\d+)/v(?P<validator>\d+)/m(?P<uid>\d+)$")),
+)
 
 _V5_PATTERNS = (
     ("serve_plan", re.compile(r"^serve/plan$")),
@@ -57,6 +88,47 @@ class KeySchema:
             raise ValueError(
                 f"unsupported KeySchema version {self.version}; "
                 f"supported: {SUPPORTED_VERSIONS}")
+
+    # -- activation plane (v1) -------------------------------------------
+
+    def tokens(self, epoch: int, tick: int) -> str:
+        return f"activations/ep{epoch}/t{tick}/tokens"
+
+    def activation(self, epoch: int, tick: int, stage: int, uid: int) -> str:
+        return f"activations/ep{epoch}/t{tick}/s{stage}/m{uid}"
+
+    def gradient(self, epoch: int, tick: int, stage: int, uid: int) -> str:
+        return self.activation(epoch, tick, stage, uid) + "/grad"
+
+    def gradient_for(self, activation_key: str) -> str:
+        """Gradient key paired with an already-minted activation key
+        (validator replay walks the miner's work log, which stores keys)."""
+        return activation_key + "/grad"
+
+    # -- weight and score planes (v1) -----------------------------------
+
+    def weight_upload(self, epoch: int, stage: int, uid: int) -> str:
+        return f"weights/ep{epoch}/s{stage}/m{uid}"
+
+    def anchor(self, epoch: int, stage: int) -> str:
+        return f"weights/ep{epoch}/s{stage}/merged"
+
+    def score(self, epoch: int, validator_uid: int, miner_uid: int) -> str:
+        return f"scores/ep{epoch}/v{validator_uid}/m{miner_uid}"
+
+    # -- prefixes the epoch driver GCs (v1) ------------------------------
+
+    def activations_prefix(self, epoch: int) -> str:
+        return f"activations/ep{epoch}"
+
+    def weights_prefix(self, epoch: int) -> str:
+        return f"weights/ep{epoch}"
+
+    def scores_prefix(self, epoch: int) -> str:
+        """All score keys of one epoch (the retention-window GC)."""
+        return f"scores/ep{epoch}"
+
+    # -- serve plane (v5) ------------------------------------------------
 
     def _require_v5(self, kind: str) -> None:
         if self.version < 5:
@@ -111,13 +183,14 @@ class KeySchema:
         return f"serve/req{req}"
 
     def parse(self, key: str) -> ParsedKey:
-        """Invert a serve key back to (kind, fields); raises ValueError on
-        any other key.  Numeric fields decode as ints."""
-        if self.version >= 5:
-            for kind, pat in _V5_PATTERNS:
-                m = pat.match(key)
-                if m:
-                    return ParsedKey(kind, {k: int(v) for k, v in
-                                            m.groupdict().items()})
-        raise ValueError(f"not a serve key of KeySchema v{self.version}: "
+        """Invert a v1 or serve key back to (kind, fields); raises
+        ValueError on any other key (serve keys need v5).  Numeric fields
+        decode as ints."""
+        patterns = (_V5_PATTERNS if self.version >= 5 else ()) + _V1_PATTERNS
+        for kind, pat in patterns:
+            m = pat.match(key)
+            if m:
+                return ParsedKey(kind, {k: int(v) for k, v in
+                                        m.groupdict().items()})
+        raise ValueError(f"key does not match KeySchema v{self.version}: "
                          f"{key!r}")

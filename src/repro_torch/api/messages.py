@@ -1,8 +1,17 @@
-"""Typed serve-plane messages (frozen dataclasses; mirrors the KeySchema v5
-part of ``repro/api/messages.py``).
+"""Typed peer-protocol messages (frozen dataclasses; mirrors the KeySchema
+v1 and v5 parts of ``repro/api/messages.py``).
 
 A message knows its own store key via ``key(schema)``; payloads ride next
-to the envelope (``Transport.publish(msg, payload)``):
+to the envelope (``Transport.publish(msg, payload)``).  The train plane
+(v1):
+
+  ActivationMsg    forward wire codes (plus pipeline-entry tokens)
+  GradientMsg      backward wire gradients
+  WeightUploadMsg  compressed weight uploads (sharing stage, section 2.1)
+  AnchorMsg        merged per-stage anchor after butterfly + DiLoCo outer
+  ScoreMsg         validator scores feeding the incentive ledger (section 3)
+
+The serve plane (v5):
 
   ServePlanMsg       the serve session spec (stages, lanes, wire codec)
   ServeRoundPlanMsg  one decode round's lane plan (admission/retire)
@@ -11,14 +20,85 @@ to the envelope (``Transport.publish(msg, payload)``):
   ServeTokenMsg      one emitted token of a request
   ServeDoneMsg       request completion marker (latency stats payload)
 
-The training-plane messages come with the training slice.
+The messages of versions 2-4 come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 from repro_torch.api.keys import KeySchema
+
+
+@dataclasses.dataclass(frozen=True)
+class ActivationMsg:
+    """A boundary activation.  ``stage is None`` marks the pipeline entry
+    (the orchestrator's token batch, produced by no miner)."""
+    epoch: int
+    tick: int
+    stage: Optional[int] = None
+    miner_uid: Optional[int] = None
+
+    @classmethod
+    def tokens(cls, epoch: int, tick: int) -> "ActivationMsg":
+        return cls(epoch, tick)
+
+    @property
+    def is_tokens(self) -> bool:
+        return self.stage is None
+
+    def key(self, schema: KeySchema) -> str:
+        if self.is_tokens:
+            return schema.tokens(self.epoch, self.tick)
+        return schema.activation(self.epoch, self.tick, self.stage,
+                                 self.miner_uid)
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientMsg:
+    """Gradient w.r.t. the activation miner_uid uploaded at (tick, stage)."""
+    epoch: int
+    tick: int
+    stage: int
+    miner_uid: int
+
+    def key(self, schema: KeySchema) -> str:
+        return schema.gradient(self.epoch, self.tick, self.stage,
+                               self.miner_uid)
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightUploadMsg:
+    """A qualifying miner's compressed weight vector (sharing stage)."""
+    epoch: int
+    stage: int
+    miner_uid: int
+    # advisory (the payload is already encoded) and not part of the key
+    codec: str = dataclasses.field(default="int8", compare=False)
+
+    def key(self, schema: KeySchema) -> str:
+        return schema.weight_upload(self.epoch, self.stage, self.miner_uid)
+
+
+@dataclasses.dataclass(frozen=True)
+class AnchorMsg:
+    """The merged per-stage anchor every miner downloads at full sync."""
+    epoch: int
+    stage: int
+
+    def key(self, schema: KeySchema) -> str:
+        return schema.anchor(self.epoch, self.stage)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoreMsg:
+    """A validator's epoch verdict on one tracked miner."""
+    epoch: int
+    validator_uid: int
+    miner_uid: int
+
+    def key(self, schema: KeySchema) -> str:
+        return schema.score(self.epoch, self.validator_uid, self.miner_uid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +167,6 @@ class ServeDoneMsg:
         return schema.serve_done(self.req)
 
 
-
-Message = Union[ServePlanMsg, ServeRoundPlanMsg, ServeCodeMsg,
+Message = Union[ActivationMsg, GradientMsg, WeightUploadMsg, AnchorMsg,
+                ScoreMsg, ServePlanMsg, ServeRoundPlanMsg, ServeCodeMsg,
                 ServeRequestMsg, ServeTokenMsg, ServeDoneMsg]

@@ -1,7 +1,22 @@
-"""The serve plane's driver and stage workers (mirrors the serve part of
-``repro/api/phases.py``).
+"""The epoch timeline of the training swarm and the serve plane's driver
+(mirrors ``repro/api/phases.py``).
 
-The decode timetable (``compile_timetable("decode", P, n_lanes)``) is the
+Training: ``EpochDriver`` runs the phase list of ``default_phases()`` over
+a swarm, in the reference's order and with its RNG call order (routing,
+fault draws, validator choice), then folds the epoch into ``EpochStats``:
+
+  TrainingPhase    CLASP-sampled pathways, forward/backward over the
+                   transport, SWARM rerouting, stragglers
+  ValidationPhase  validators replay tracked miners from their epoch-start
+                   snapshots (before the merge, as in the reference)
+  SharingPhase     qualifying miners upload codec-compressed weights
+  SyncPhase        butterfly all-reduce (K3 on the card) + DiLoCo outer
+                   step + anchor download for everyone
+
+The sharded sync, the overlapped and event-driven timelines come with later
+slices.
+
+Serving: the decode timetable (``compile_timetable("decode", P, n_lanes)``) is the
 single source of execution order: micro-batch slots are request lanes, and
 one round advances every active lane by one token.  The driver does
 continuous batching: it admits queued requests into free lanes and retires
@@ -10,9 +25,6 @@ Stage compute is a ``StageServer`` per stage, called in timetable slot
 order.  Sampling stays in the driver, so stages are deterministic functions
 of store payloads and greedy decode reproduces the sequential oracle
 ``launch.serve.swarm_generate`` token for token.
-
-The training phases (``EpochDriver`` and its phases) come with the training
-slice.
 """
 from __future__ import annotations
 
@@ -23,16 +35,340 @@ from typing import Any, Iterable, Optional
 import numpy as np
 import torch
 
+from repro_torch.api.config import EpochStats
 from repro_torch.api.messages import (
+    ActivationMsg,
+    AnchorMsg,
+    GradientMsg,
+    ScoreMsg,
     ServeCodeMsg,
     ServeDoneMsg,
     ServePlanMsg,
     ServeRequestMsg,
     ServeRoundPlanMsg,
     ServeTokenMsg,
+    WeightUploadMsg,
 )
+from repro_torch.common import ravel, unravel_like
+from repro_torch.core import butterfly, clasp, compression, diloco
 from repro_torch.core.pipeline import ROLE_F, compile_timetable
 from repro_torch.runtime import stage_model as sm
+
+
+# ---------------------------------------------------------------------------
+# The training epoch
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EpochState:
+    """Mutable scratchpad one epoch's phases write into; the driver folds
+    it into ``EpochStats`` at the end."""
+    epoch: int
+    snapshots: dict[int, dict]
+    records: list = dataclasses.field(default_factory=list)
+    labels_for: dict = dataclasses.field(default_factory=dict)
+    stalled: int = 0
+    validation: list = dataclasses.field(default_factory=list)
+    batches: dict[int, int] = dataclasses.field(default_factory=dict)
+    merge_quorum: bool = False
+    b_eff: int = 0
+    # sharing -> sync handoff: stage -> (qualifying miners, decoded uploads)
+    qualified: dict[int, list] = dataclasses.field(default_factory=dict)
+    uploads: dict[int, dict[int, np.ndarray]] = dataclasses.field(
+        default_factory=dict)
+    merged_stages: int = 0
+    agreement: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
+
+
+class TrainingPhase:
+    name = "training"
+
+    def run(self, swarm, state: EpochState) -> None:
+        S = swarm.config
+        if S.pipeline_virtual_stages != 1:
+            raise NotImplementedError(
+                "store-path training is stage-granular: "
+                "pipeline_virtual_stages > 1 only applies to the on-mesh "
+                "engine (the pipeline-engine slice)")
+        tp, schema = swarm.transport, swarm.transport.schema
+        for tick in range(S.inner_steps):
+            batch = swarm.corpus.batch(swarm.global_tick)
+            swarm.global_tick += 1
+            # SWARM routing: sample one available miner per stage, reroute
+            pathway = []
+            ok = True
+            for s in range(S.n_stages):
+                avail = [m for m in swarm.stage_miners(s)
+                         if swarm.available(m, tick)]
+                if not avail:
+                    ok = False
+                    break
+                pathway.append(avail[swarm.rng.randint(len(avail))])
+            if not ok:
+                state.stalled += 1     # a whole layer offline: pipeline stall
+                continue
+
+            tok_msg = ActivationMsg.tokens(state.epoch, tick)
+            tp.publish(tok_msg, batch["tokens"], actor="orchestrator")
+            # ---------------- forward chain ----------------
+            in_key = tok_msg.key(schema)
+            last_in_key = in_key
+            for s, miner in enumerate(pathway):
+                out_msg = ActivationMsg(state.epoch, tick, s, miner.uid)
+                out_key = out_msg.key(schema)
+                if s == S.n_stages - 1:
+                    last_in_key = in_key
+                out = miner.forward(tick, in_key, out_key)
+                # an adversarial miner uploads a corrupted activation in
+                # place of its honest output — validators catch the mismatch
+                # on replay, CLASP catches the downstream loss inflation
+                b = swarm.faults.behavior(miner.uid)
+                if s < S.n_stages - 1 and (b.free_ride
+                                           or b.tamper_activations > 0):
+                    corrupted = swarm.faults.corrupt_activation(
+                        miner.uid, out.float().cpu().numpy())
+                    tp.publish(out_msg,
+                               torch.from_numpy(corrupted).to(out.dtype),
+                               actor=miner.actor)
+                in_key = out_key
+            last = pathway[-1]
+            labels = torch.as_tensor(batch["labels"], device=swarm.device)
+            state.labels_for[last_in_key] = labels
+
+            # ---------------- backward chain ----------------
+            loss, g = last.backward_last(last_in_key, labels)
+            state.records.append(clasp.PathwayRecord(
+                tuple(m.uid for m in pathway), loss))
+            for s in range(S.n_stages - 2, -1, -1):
+                miner = pathway[s]
+                msg = GradientMsg(state.epoch, tick, s, miner.uid)
+                if S.wire_codec == "int8":
+                    # the paper's symmetric compression: gradient hand-offs
+                    # ship as blockwise-int8 codes; miners train on the
+                    # dequantized codes, and validator replay decodes the
+                    # same payload, so both sides see one wire
+                    flat = g.to(torch.float32).reshape(-1)
+                    payload = dict(compression.encode(flat, "int8"),
+                                   shape=tuple(g.shape))
+                    tp.publish(msg, payload, actor="orchestrator")
+                    g = compression.decode(payload).reshape(g.shape).to(
+                        g.dtype)
+                else:
+                    tp.publish(msg, g, actor="orchestrator")
+                g = miner.backward(miner.work_log[-1].sample_key, g)
+
+
+class ValidationPhase:
+    """Each validator tracks a random miner (section 3: random assignment)
+    and publishes its verdict as a ``ScoreMsg`` so emissions are auditable
+    from the store alone.  Only snapshotted miners are assignable.
+
+    The epoch-start snapshots have no reader after this phase, so it
+    releases them: at full width they hold 9 GB of host memory per miner,
+    which the sharing and sync phases need for the uploads."""
+    name = "validation"
+
+    def run(self, swarm, state: EpochState) -> None:
+        t_now = state.epoch * swarm.config.sync_interval_hours
+        uids = sorted(u for u in swarm.miners if u in state.snapshots)
+        if not uids:
+            return
+        for v in swarm.validators:
+            uid = uids[swarm.rng.randint(len(uids))]
+            m = swarm.miners[uid]
+            res = v.validate_epoch(m, state.snapshots[uid], state.epoch,
+                                   t_now, state.labels_for,
+                                   max_items=swarm.config.validate_max_items)
+            swarm.transport.publish(
+                ScoreMsg(state.epoch, v.uid, uid),
+                np.asarray([res.score, res.checked, res.passed,
+                            res.min_cosine], np.float32),
+                actor=v.actor)
+            state.validation.append(res)
+        state.snapshots.clear()
+
+
+class SharingPhase:
+    """Compressed sharing (section 2.1): qualifying miners (B_m >= B_min,
+    quorum) upload codec-compressed weight vectors within their layer.  The
+    vector is encoded on the miner's device (K2a for int8) and decoded
+    there (K2b); the decoded upload comes back to numpy for the sync, as in
+    the reference."""
+    name = "sharing"
+
+    def run(self, swarm, state: EpochState) -> None:
+        S = swarm.config
+        state.batches = {m.uid: m.batches_done
+                         for m in swarm.miners.values()}
+        state.b_eff = diloco.effective_batch(state.batches, S.b_min)
+        state.merge_quorum = diloco.should_merge(state.batches, S.b_min,
+                                                 S.quorum_frac)
+        if not state.merge_quorum:
+            return
+        for s in range(S.n_stages):
+            qual = [m for m in swarm.stage_miners(s)
+                    if m.batches_done >= S.b_min]
+            if len(qual) < 2:
+                continue
+            uploads: dict[int, np.ndarray] = {}
+            with swarm.transport.parallel():   # distinct links: overlap
+                for idx, m in enumerate(qual):
+                    vec = m.weights_vector()
+                    if swarm.faults.behavior(m.uid).tamper_weights > 0:
+                        # the fault model is numpy: corrupt on the host
+                        vec = torch.from_numpy(swarm.faults.corrupt_weights(
+                            m.uid, vec.cpu().numpy())).to(vec.device)
+                    payload = compression.encode(vec, S.share_codec)
+                    del vec
+                    swarm.transport.publish(
+                        WeightUploadMsg(state.epoch, s, m.uid,
+                                        codec=S.share_codec),
+                        payload, actor=m.actor)
+                    uploads[idx] = compression.decode(
+                        payload).cpu().numpy()
+            state.qualified[s] = qual
+            state.uploads[s] = uploads
+
+
+class SyncPhase:
+    """Butterfly all-reduce per layer (the agreement matrix exposes
+    tamperers), DiLoCo outer Nesterov step on the per-stage anchor, then
+    everyone — stragglers and joiners included — downloads the anchor.  The
+    dense reduce runs centrally, each shard's merge through K3 on the
+    swarm's device."""
+    name = "sync"
+
+    def run(self, swarm, state: EpochState) -> None:
+        if not state.merge_quorum:
+            return
+        for s, qual in state.qualified.items():
+            merged = self._reduce_dense(swarm, state, s, qual)
+            self._outer_step_and_full_sync(swarm, state, s, merged)
+
+    def _reduce_dense(self, swarm, state: EpochState, s: int,
+                      qual: list) -> np.ndarray:
+        S = swarm.config
+        # the decoded uploads have no reader after this stage's reduce;
+        # dropping them here keeps one stage's worth on the host at a time
+        uploads = state.uploads.pop(s)
+        plan = butterfly.make_plan(len(qual), uploads[0].shape[0],
+                                   seed=S.seed + state.epoch * 131 + s)
+        # a weight-tampering miner also reduces dishonestly: its merged
+        # shard copies deviate, which is what the agreement matrix exposes
+        tamper = {idx: swarm.faults.behavior(m.uid).tamper_weights
+                  for idx, m in enumerate(qual)
+                  if swarm.faults.behavior(m.uid).tamper_weights > 0}
+        copies = butterfly.reduce_with_copies(plan, uploads,
+                                              tamper=tamper or None,
+                                              device=swarm.device)
+        state.agreement[s] = butterfly.agreement_matrix(plan, copies)
+        del copies
+        merged, _, _ = butterfly.reduce_shards(plan, uploads,
+                                               device=swarm.device)
+        return merged
+
+    def _outer_step_and_full_sync(self, swarm, state: EpochState, s: int,
+                                  merged: np.ndarray) -> None:
+        S = swarm.config
+        # --- DiLoCo outer step on the per-stage anchor ---
+        avg = unravel_like(swarm.anchors[s],
+                           torch.from_numpy(merged).to(swarm.device))
+        swarm.outer[s] = diloco.outer_update(
+            swarm.outer[s], avg, outer_lr=S.outer_lr,
+            outer_momentum=S.outer_momentum)
+        del avg
+        swarm.anchors[s] = swarm.outer[s].anchor
+        # --- full sync: every miner (incl. stragglers/joiners) downloads
+        anchor_vec, _ = ravel(swarm.anchors[s])
+        msg = AnchorMsg(state.epoch, s)
+        swarm.transport.publish(msg, anchor_vec.cpu().numpy(),
+                                actor="orchestrator")
+        del anchor_vec
+        with swarm.transport.parallel():
+            for m in swarm.stage_miners(s):
+                vec = swarm.transport.fetch(msg, actor=m.actor)
+                m.load_weights_vector(vec)
+        state.merged_stages += 1
+
+
+def default_phases() -> list:
+    """The reference's timeline.  Validation precedes merge because replay
+    starts from the epoch-start snapshot (the miner's last full sync)."""
+    return [TrainingPhase(), ValidationPhase(), SharingPhase(), SyncPhase()]
+
+
+class EpochDriver:
+    """Runs the phase list over a swarm and folds the scratchpad into
+    ``EpochStats``."""
+
+    def __init__(self, phases: Optional[Iterable] = None):
+        self.phases: list = list(phases or default_phases())
+        self._gc_floor = 0          # first epoch whose weights/scores remain
+
+    def run_epoch(self, swarm) -> EpochStats:
+        for m in swarm.miners.values():
+            m.reset_epoch()
+        state = EpochState(
+            epoch=swarm.epoch,
+            snapshots={uid: m.snapshot()
+                       for uid, m in swarm.miners.items()})
+        for phase in self.phases:
+            phase.run(swarm, state)
+        return self._finalize(swarm, state)
+
+    def _finalize(self, swarm, state: EpochState) -> EpochStats:
+        """Fold the epoch scratchpad into ``EpochStats`` and GC the store."""
+        if not state.batches:
+            # a timeline without SharingPhase still reports the batch census
+            state.batches = {m.uid: m.batches_done
+                             for m in swarm.miners.values()}
+            state.b_eff = diloco.effective_batch(state.batches,
+                                                 swarm.config.b_min)
+
+        n_miners = len(swarm.miners)
+        layer_of = np.array([swarm.miners[u].stage
+                             for u in sorted(swarm.miners.keys())])
+        report = (clasp.attribute(state.records, n_miners, layer_of)
+                  if state.records else None)
+        t_now = swarm.epoch * swarm.config.sync_interval_hours
+        swarm.ledger.prune(t_now)
+        emissions = swarm.ledger.emissions(
+            t_now, miners=sorted(swarm.miners.keys()))
+
+        stats = EpochStats(
+            epoch=swarm.epoch,
+            mean_loss=float(np.mean([r.loss for r in state.records]))
+            if state.records else float("nan"),
+            b_eff=state.b_eff,
+            batches=dict(state.batches),
+            merged_stages=state.merged_stages,
+            stalled_ticks=state.stalled,
+            agreement=state.agreement,
+            clasp=report,
+            validation=state.validation,
+            emissions=emissions,
+        )
+        swarm.history.append(stats)
+        swarm.epoch += 1
+        # activations from this epoch are garbage-collected from the store
+        schema = swarm.transport.schema
+        swarm.transport.delete_prefix(
+            schema.activations_prefix(stats.epoch))
+        # weight/score planes: retention-window GC (None keeps everything)
+        retain = swarm.config.retain_epochs
+        if retain is not None:
+            while self._gc_floor <= stats.epoch - retain:
+                e = self._gc_floor
+                swarm.transport.delete_prefix(schema.weights_prefix(e))
+                swarm.transport.delete_prefix(schema.scores_prefix(e))
+                self._gc_floor += 1
+        return stats
+
+
+# ---------------------------------------------------------------------------
+# The serve plane
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

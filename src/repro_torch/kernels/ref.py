@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serve slice's path.
+"""Plain PyTorch versions of the kernels the port runs.
 
 Mirrors ``repro/kernels/ref.py`` operation for operation, so that on the
 same inputs the two packages compute the same numbers: CPU tensors run
@@ -116,3 +116,22 @@ def int8_wire_roundtrip(z: torch.Tensor,
     blk = block or wire_code_block(z.numel(), z.shape[-1])
     q, s = quantize_int8(z.float().reshape(-1), block=blk)
     return dequantize_int8(q, s, block=blk).reshape(z.shape).to(z.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Butterfly shard merge (paper section 5.2)
+# ---------------------------------------------------------------------------
+
+
+def shard_merge(shards: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the miner copies of one shard: shards (M, L), valid
+    (M,) bool -> (L,) f32, sum_m valid_m * shards[m] / max(sum valid, 1).
+
+    The sum runs over m = 0 .. M-1 in index order, one row at a time, so
+    the kernel that sums in the same order equals it bit for bit."""
+    vf = valid.to(device=shards.device, dtype=torch.float32)
+    num = shards[0].float() * vf[0]
+    for m in range(1, shards.shape[0]):
+        num = num + shards[m].float() * vf[m]
+    den = torch.clamp(vf.sum(), min=1.0)
+    return num / den

@@ -33,22 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.common import generator, use_full_f32_matmul
-
-
-def resolve_device(device: str) -> str:
-    """Check that ``device`` is usable and set the f32 matmul policy.
-    A CUDA device without a card raises: nothing falls back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r} requested but no CUDA device is present "
-                f"(pass device='cpu' to run on the host)")
-        use_full_f32_matmul()
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return str(dev)
+from repro_torch.common import generator, resolve_device
 
 
 def swarm_generate(spec, seed: int, requests: Iterable, *,

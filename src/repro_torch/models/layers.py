@@ -195,8 +195,10 @@ def init_embeddings(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Gather rows of the f32 table, then cast."""
-    return params["embed"][tokens.long()].to(dtype)
+    """Gather rows of the f32 table, then cast.  ``F.embedding``: its
+    backward on the card sums each row's gradient without atomics."""
+    return torch.nn.functional.embedding(tokens.long(),
+                                         params["embed"]).to(dtype)
 
 
 def logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -206,3 +208,15 @@ def logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     pad = (torch.arange(cfg.padded_vocab, device=x.device)
            >= cfg.vocab_size).float() * -1e9
     return out + pad
+
+
+def next_token_loss(lgts: torch.Tensor, labels: torch.Tensor,
+                    z_loss: float = 0.0) -> torch.Tensor:
+    """Mean next-token cross entropy in f32; labels (B, S) already
+    shifted."""
+    lse = torch.logsumexp(lgts, dim=-1)
+    true_logit = torch.gather(lgts, -1, labels.long()[..., None])[..., 0]
+    nll = lse - true_logit
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    return torch.mean(nll)

@@ -1,4 +1,4 @@
-"""Per-stage model functions of the serve plane (mirrors
+"""Per-stage model functions of the train and serve planes (mirrors
 ``repro/runtime/stage_model.py``).
 
 Each stage owns one contiguous layer slice of a dense decoder LM, with
@@ -9,11 +9,16 @@ bottleneck codes as the inter-stage wire format:
   last:  z --decode--> blocks --norm--> logits
   solo:  tokens --embed--> blocks --norm--> logits   (a one-stage swarm)
 
-``StageProgram`` carries the serve entries (``init_cache``, ``prefill``,
-``decode_step``, ``encode_wire``, ``decode_wire``); the train entries wait
-for the training slice.  Parameters are dicts of tensors with layer-stacked
-``blocks``, the JAX package's tree layout, so ``repro_torch.convert`` can
-carry a JAX stage's parameters over as they are.
+Backward passes recompute the stage forward under autograd from the stored
+input, as the reference's ``jax.vjp`` does: miners keep activations
+locally while only boundary activations transit the store.
+
+``StageProgram`` carries the train entries (``forward``, ``backward``,
+``loss_and_grads``) and the serve entries (``init_cache``, ``prefill``,
+``decode_step``, ``encode_wire``, ``decode_wire``).  Parameters are dicts
+of tensors with layer-stacked ``blocks``, the JAX package's tree layout, so
+``repro_torch.convert`` can carry a JAX stage's parameters over as they
+are.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.common import generator, tree_map
+from repro_torch.common import generator, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import blocks as blk
@@ -33,6 +38,7 @@ from repro_torch.models.layers import (
     embed,
     init_kv_cache,
     logits as logits_fn,
+    next_token_loss,
     norm_init,
     rmsnorm,
 )
@@ -100,6 +106,26 @@ def init_stage_params(gen: torch.Generator, spec: SwarmModelSpec, stage: int,
     return p
 
 
+def _layers(p_blocks: dict) -> list[dict]:
+    """The layer-stacked slice as one parameter dict per layer (views)."""
+    n = next(tree_leaves(p_blocks)).shape[0]
+    return [tree_map(lambda t: t[i], p_blocks) for i in range(n)]
+
+
+def _blocks_apply(layers: list[dict], x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Run the slice without a cache (the train plane): positions 0..S-1,
+    causal attention through ``ops.flash_attention`` (K1 on the card)."""
+    kind = blk.period_kinds(cfg)[0]
+    B, S = x.shape[0], x.shape[1]
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
+        B, S)
+    ctx = blk.BlockCtx(cfg=cfg, positions=pos)
+    for lp in layers:
+        x, _, _ = blk.apply_block(kind, lp, x, ctx, None)
+    return x
+
+
 def _blocks_apply_cached(p_blocks: dict, x: torch.Tensor, cfg: ModelConfig,
                          cache: KVCache) -> tuple[torch.Tensor, KVCache]:
     """Run the slice over the layer-stacked stage cache.  Positions are
@@ -110,8 +136,7 @@ def _blocks_apply_cached(p_blocks: dict, x: torch.Tensor, cfg: ModelConfig,
     pos = (cache.length + torch.arange(S, dtype=torch.int32,
                                        device=x.device))[None].expand(B, S)
     ctx = blk.BlockCtx(cfg=cfg, positions=pos)
-    for layer in range(cache.k.shape[0]):
-        lp = tree_map(lambda t: t[layer], p_blocks)
+    for layer, lp in enumerate(_layers(p_blocks)):
         st = KVCache(cache.k[layer], cache.v[layer], cache.length)
         x, _, _ = blk.apply_block(kind, lp, x, ctx, st)
     return x, KVCache(cache.k, cache.v, cache.length + S)
@@ -142,6 +167,82 @@ def _stage_exit(params: dict, x: torch.Tensor, spec: SwarmModelSpec,
         xn = rmsnorm(x, params["enc_norm"], cfg.norm_eps)
         return (xn.float() @ params["w_down"].float()).to(WIRE_DTYPE)
     return x.to(WIRE_DTYPE)
+
+
+def _forward(params: dict, layers: list[dict], x_in: torch.Tensor,
+             spec: SwarmModelSpec, role: str) -> torch.Tensor:
+    x = _stage_entry(params, x_in, spec, role)
+    x = _blocks_apply(layers, x, spec.cfg)
+    return _stage_exit(params, x, spec, role)
+
+
+@torch.no_grad()
+def stage_forward(params: dict, x_in: torch.Tensor, spec: SwarmModelSpec,
+                  role: str) -> torch.Tensor:
+    """x_in: tokens (first) or wire code z (mid/last).  Returns the stage
+    output: a wire code (bf16), or f32 logits on the last stage."""
+    return _forward(params, _layers(params["blocks"]), x_in, spec, role)
+
+
+def _grad_leaves(params: dict) -> tuple[dict, list[dict]]:
+    """Autograd leaves over the same storage as ``params``: every leaf
+    outside ``blocks`` and every layer of each stacked block leaf, detached
+    and requiring grad (one gradient tensor per layer, stacked once after,
+    instead of a full-size buffer per layer)."""
+    head = {k: tree_map(lambda t: t.detach().requires_grad_(), v)
+            for k, v in params.items() if k != "blocks"}
+    n = next(tree_leaves(params["blocks"])).shape[0]
+    layers = [tree_map(lambda t: t.detach()[i].requires_grad_(),
+                       params["blocks"]) for i in range(n)]
+    return head, layers
+
+
+def _grads(out: torch.Tensor, head: dict, layers: list[dict],
+           extra: list, grad_out: Optional[torch.Tensor] = None):
+    """Gradients of ``out`` w.r.t. the leaves of ``_grad_leaves`` (as one
+    tree shaped like the stage parameters) and w.r.t. ``extra``."""
+    head_leaves = list(tree_leaves(head))
+    layer_leaves = [list(tree_leaves(lp)) for lp in layers]
+    inputs = head_leaves + [t for ls in layer_leaves for t in ls] + extra
+    gs = list(torch.autograd.grad(out, inputs, grad_out))
+    it = iter(gs[:len(head_leaves)])
+    g_params = tree_map(lambda _: next(it), head)
+    per_layer = []
+    off = len(head_leaves)
+    for lp in layers:
+        git = iter(gs[off:off + len(layer_leaves[0])])
+        per_layer.append(tree_map(lambda _: next(git), lp))
+        off += len(layer_leaves[0])
+    g_params["blocks"] = _stack(per_layer)
+    return g_params, gs[off:]
+
+
+def last_stage_loss_and_grads(params: dict, z_in: torch.Tensor,
+                              labels: torch.Tensor, spec: SwarmModelSpec):
+    """Last miner computes the loss; returns (loss, g_params, g_z_in)."""
+    with torch.enable_grad():
+        head, layers = _grad_leaves(params)
+        z = z_in.detach().requires_grad_()
+        loss = next_token_loss(
+            _forward(head, layers, z, spec, "last"),
+            labels)
+        g_params, (g_z,) = _grads(loss, head, layers, [z])
+    return loss.detach(), g_params, g_z
+
+
+def stage_backward(params: dict, x_in: torch.Tensor, g_out: torch.Tensor,
+                   spec: SwarmModelSpec, role: str):
+    """Recompute-forward VJP: returns (g_params, g_x_in).  The cotangent
+    enters in the wire dtype (bf16), as the reference casts it; for the
+    first stage g_x_in is None (tokens are integers)."""
+    with torch.enable_grad():
+        head, layers = _grad_leaves(params)
+        extra = [] if role == "first" else [x_in.detach().requires_grad_()]
+        x = x_in if role == "first" else extra[0]
+        out = _forward(head, layers, x, spec, role)
+        g_params, g_x = _grads(out, head, layers, extra,
+                               g_out.to(WIRE_DTYPE))
+    return g_params, (g_x[0] if g_x else None)
 
 
 @torch.no_grad()
@@ -175,8 +276,8 @@ def init_stage_cache(spec: SwarmModelSpec, stage: int, batch: int,
 
 @dataclasses.dataclass(frozen=True)
 class StageProgram:
-    """One stage's layer slice as a program with named serve entries over
-    the same parameters and boundary codecs.  ``encode_wire``/
+    """One stage's layer slice as a program with named train and serve
+    entries over the same parameters and boundary codecs.  ``encode_wire``/
     ``decode_wire`` apply the optional int8 wire codec to boundary codes,
     so the pipelined driver and the sequential oracle ship identical
     payloads.  Payloads are host (CPU) tensors, as the reference ships
@@ -198,6 +299,19 @@ class StageProgram:
             return "solo"
         return self.spec.role(self.stage)
 
+    # ---- train plane ----
+    def forward(self, params: dict, x_in: torch.Tensor) -> torch.Tensor:
+        return stage_forward(params, x_in, self.spec, self.role)
+
+    def backward(self, params: dict, x_in: torch.Tensor,
+                 g_out: torch.Tensor):
+        return stage_backward(params, x_in, g_out, self.spec, self.role)
+
+    def loss_and_grads(self, params: dict, z_in: torch.Tensor,
+                       labels: torch.Tensor):
+        return last_stage_loss_and_grads(params, z_in, labels, self.spec)
+
+    # ---- serve plane ----
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = WIRE_DTYPE) -> KVCache:
         return init_stage_cache(self.spec, self.stage, batch, max_len,

@@ -2,9 +2,12 @@
 ``repro/runtime/state_store.py``).
 
 A dict with content digests and byte accounting per (namespace, direction)
-and per actor.  Payloads are host data, as in the reference: nests of
-dicts, lists and tuples whose leaves are CPU tensors (bf16 has no numpy
-dtype), numpy arrays or Python scalars.  A tensor leaf counts its raw bytes
+and per actor, and the optional wire codec applied on put (compressed
+sharing).  Payloads are host data: nests of dicts, lists and tuples whose
+leaves are CPU tensors (bf16 has no numpy dtype), numpy arrays or Python
+scalars.  ``put`` copies a tensor leaf that lies on the card to the host,
+so what the store keeps never holds device memory (a full-width epoch puts
+~17 GB of last-stage logits into it).  A tensor leaf counts its raw bytes
 and any other leaf counts ``np.asarray(leaf).nbytes``, so the byte counts
 equal the reference's for the same payloads.
 """
@@ -17,6 +20,9 @@ from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.common import ravel, tree_map
+from repro_torch.core import compression
 
 
 class StoreKeyError(KeyError):
@@ -63,11 +69,23 @@ def _leaves(value: Any) -> Iterator[Any]:
         yield value
 
 
-def _leaf_bytes(leaf: Any) -> bytes:
+def _leaf_bytes(leaf: Any) -> np.ndarray:
+    """The leaf's raw bytes as a contiguous array (hashed without a copy)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
-        return t.reshape(-1).view(torch.uint8).numpy().tobytes()
-    return np.ascontiguousarray(np.asarray(leaf)).tobytes()
+        return t.reshape(-1).view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(leaf)).reshape(-1).view(np.uint8)
+
+
+def _host(value: Any) -> Any:
+    """``value`` with every tensor leaf on the host."""
+    if isinstance(value, dict):
+        return {k: _host(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_host(v) for v in value)
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    return value
 
 
 def _nbytes(value: Any) -> int:
@@ -113,11 +131,13 @@ class StateStore:
     def put(self, key: str, value: Any, actor: str = "?",
             codec: Optional[str] = None,
             meta: Optional[dict] = None) -> StoreEntry:
-        """Store ``value`` and return its entry (payload, bytes, digest)."""
+        """Store ``value`` (tensor leaves copied to the host) and return its
+        entry (payload, bytes, digest).  With a ``codec``, the value is
+        flattened and stored as that codec's payload."""
         if codec and codec != "none":
-            raise NotImplementedError(
-                f"store codec {codec!r} (repro/core/compression.py) comes "
-                f"with the training slice")
+            flat, _ = ravel(tree_map(torch.as_tensor, value))
+            value = compression.encode(flat, codec)
+        value = _host(value)
         nbytes = _nbytes(value)
         entry = StoreEntry(value, nbytes, _digest(value),
                            dict(meta or {}, codec=codec or "none"))
